@@ -4,7 +4,7 @@ The reference spreads configuration over compile-time macros, roslaunch YAML
 variants, OCS2 `.info` trees, and runtime topics (SURVEY.md §5). Here the
 entire configuration is a single immutable pytree (`RobotParams`) so it can be
 domain-randomized under `vmap` (per-scenario mass/inertia/friction/gait
-parameters) — the TPU-native replacement for ROS's param server.
+parameters) — the replacement for ROS's param server.
 
 Values mirror reference: src/legged_ctrl/config/gazebo_a1_convex.yaml and
 gazebo_go1_convex.yaml, with fallback defaults from
@@ -14,12 +14,12 @@ src/legged_ctrl/src/LeggedState.cpp:20-209.
 from typing import Any
 
 import jax.numpy as jnp
-from flax import struct
 
+from legged_mpc_control_tpu import pytree
 from legged_mpc_control_tpu import constants as C
 
 
-@struct.dataclass
+@pytree.dataclass
 class RobotParams:
     """Per-robot physical + controller parameters (all leaves are arrays)."""
 

@@ -1,4 +1,4 @@
-"""Hierarchical QP with inequality tiers — TPU-native HoQp equivalent.
+"""Hierarchical QP with inequality tiers — the HoQp equivalent.
 
 Re-design of the reference's recursive null-space hierarchy
 (reference: src/legged_ctrl/src/wbc_ctrl/HoQp.cpp:147-174, itself after

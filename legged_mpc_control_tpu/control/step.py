@@ -17,8 +17,8 @@ from typing import Any, NamedTuple
 
 import jax
 import jax.numpy as jnp
-from flax import struct
 
+from legged_mpc_control_tpu import pytree
 from legged_mpc_control_tpu import constants as C
 from legged_mpc_control_tpu.config import RobotParams
 from legged_mpc_control_tpu.control import low_level, raibert, safety, sensors
@@ -34,7 +34,7 @@ from legged_mpc_control_tpu.types import (
 )
 
 
-@struct.dataclass
+@pytree.dataclass
 class LoopState:
     """Carry of the closed-loop rollout: controller + simulated world."""
     controller: ControllerState
@@ -306,8 +306,8 @@ def closed_loop_tick_wb(loop: LoopState, params: RobotParams,
 
 
 @partial(jax.jit, static_argnames=("horizon", "substeps", "kf_type",
-                                   "iters", "solver", "backend",
-                                   "low_level_type", "n_inner"))
+                                   "iters", "solver", "low_level_type",
+                                   "n_inner"))
 def closed_loop_tick_wb_batched(loop: LoopState, params: RobotParams,
                                 pattern: gait_mod.GaitPattern, model, *,
                                 horizon: int = 10,
@@ -315,18 +315,16 @@ def closed_loop_tick_wb_batched(loop: LoopState, params: RobotParams,
                                 kf_type: int = 0,
                                 iters: int = 15,
                                 solver: str = "riccati",
-                                backend: str = None,
                                 low_level_type: int = 0,
                                 n_inner: int = 4,
                                 terrain=None,
                                 warm=None):
     """Scenario-batched closed-loop tick against the ARTICULATED
-    whole-body simulator — the Gazebo-fidelity twin as a SWEEP backend
-    (VERDICT r3 weak #3): domain randomization runs against real
-    rigid-body physics instead of the anchored SRB. The QP solve runs
-    once for the whole batch (batched Riccati/Pallas); the 18-DoF mass
-    matrices factorize in one batch-in-lanes Cholesky
-    (sim/wb_sim.wb_sim_step_batched).
+    whole-body simulator — the Gazebo-fidelity twin as a SWEEP backend:
+    domain randomization runs against real rigid-body physics instead of
+    the anchored SRB. The QP solve runs
+    once for the whole batch (batched Riccati); the 18-DoF mass matrices
+    factorize in one batched Cholesky (sim/wb_sim.wb_sim_step_batched).
 
     `loop.sim` must be a wb_sim.WbSimState with a leading scenario axis;
     `model` is the shared robot. Returns (loop', warm')."""
@@ -334,8 +332,6 @@ def closed_loop_tick_wb_batched(loop: LoopState, params: RobotParams,
 
     dt_mpc = C.MPC_DT
     dt_ll = dt_mpc / substeps
-    if backend is None:
-        backend = default_backend()
 
     v_sensors = jax.vmap(lambda s: wb_sim.wb_read_sensors(s, model))
     v_fb = jax.vmap(
@@ -349,23 +345,21 @@ def closed_loop_tick_wb_batched(loop: LoopState, params: RobotParams,
     cs = v_fb(cs, v_sensors(loop.sim), params)
     cs, warm = convex_mpc.mpc_tick_batched(
         cs, params, pattern, dt_mpc, horizon=horizon, iters=iters,
-        solver=solver, backend=backend, warm=warm)
+        solver=solver, warm=warm)
 
     def substep(carry, _):
         cs, sim = carry
         cs, tau, _safe = v_ll(cs, params)
         sim = wb_sim.wb_sim_step_batched(sim, tau, model, params, dt_ll,
-                                         n_inner=n_inner, terrain=terrain,
-                                         backend=backend)
+                                         n_inner=n_inner, terrain=terrain)
         cs = v_fb(cs, v_sensors(sim), params)
         return (cs, sim), None
 
-    # unroll only on TPU: the articulated substep body (autodiff M/nle per
-    # inner step) is enormous, and 8x-unrolling it inside a long rollout
-    # scan has crashed XLA:CPU's compiler in full-suite runs
+    # rolled, not unrolled: the articulated substep body is large, and
+    # 8x-unrolling it inside a long rollout scan has crashed XLA:CPU's
+    # compiler in full-suite runs
     (cs, sim), _ = jax.lax.scan(substep, (cs, loop.sim), None,
-                                length=substeps,
-                                unroll=(backend == "pallas"))
+                                length=substeps)
     return LoopState(controller=cs, sim=sim), warm
 
 
@@ -418,23 +412,18 @@ def closed_loop_tick_lci(loop: LoopState, lci_state, params: RobotParams,
 
 @partial(jax.jit, static_argnames=("stand_policy", "walk_policy",
                                    "substeps", "kf_type",
-                                   "low_level_type", "fused_substeps"))
+                                   "low_level_type"))
 def closed_loop_tick_lci_batched(loop: LoopState, lci_state,
                                  params: RobotParams, stand_policy,
                                  walk_policy, t, *,
                                  substeps: int = C.SUBSTEPS_PER_MPC_TICK,
                                  kf_type: int = 0,
                                  low_level_type: int = 0,
-                                 terrain=None,
-                                 fused_substeps: bool = True):
+                                 terrain=None):
     """Scenario-batched closed-loop MPC period through the LCI-MPC
     backend: `closed_loop_tick_lci` with a leading scenario axis, the CI
     engine evaluated as ONE batch-native solve
-    (lci_mpc.lci_mpc_tick_batched + mpc/ci_mpc.ci_solve_batched), and —
-    on the TPU flat-ground kf0 product path — the substep chain in one
-    fused Pallas launch (ops/substep_pallas.py; the kernel is
-    MPC-backend-agnostic: it consumes optimized_state/input, which the
-    LCI seam fills exactly like the convex path).
+    (lci_mpc.lci_mpc_tick_batched + mpc/ci_mpc.ci_solve_batched).
 
     `loop`/`lci_state` batched on every leaf; `walk_policy` must carry
     the `ci_batched` contract. Returns (loop', lci_state')."""
@@ -442,7 +431,6 @@ def closed_loop_tick_lci_batched(loop: LoopState, lci_state,
 
     dt_mpc = C.MPC_DT
     dt_ll = dt_mpc / substeps
-    backend = default_backend()
 
     # params are SHARED across scenarios here (the batch-native CI engine
     # closes over one robot), unlike closed_loop_tick_batched's
@@ -463,36 +451,6 @@ def closed_loop_tick_lci_batched(loop: LoopState, lci_state,
     cs = v_fb(cs, v_sensors(loop.sim, params, grf_normal))
     cs, lci_state = lci_mpc.lci_mpc_tick_batched(
         cs, lci_state, stand_policy, walk_policy, t, dt_mpc)
-
-    use_fused = (fused_substeps and backend == "pallas" and terrain is None
-                 and kf_type == 0 and low_level_type == 0)
-    if use_fused:
-        from legged_mpc_control_tpu.ops import substep_pallas
-
-        # the fused kernel's param operands are batched (the convex
-        # batched tick runs under broadcast_params); here params are
-        # shared, so broadcast just for the kernel call
-        pb = broadcast_params(params, loop.sim.pos.shape[0])
-        thresh = (pb.foot_sensor_min + pb.foot_sensor_ratio
-                  * (pb.foot_sensor_max - pb.foot_sensor_min))
-        out = substep_pallas.substep_chain_fused(
-            loop.sim.pos, loop.sim.quat, loop.sim.vel, loop.sim.omega,
-            loop.sim.q, loop.sim.dq, loop.sim.contact, loop.sim.anchor,
-            cs.ctrl.optimized_state, cs.ctrl.optimized_input,
-            cs.ctrl.movement_mode, pb.mass, pb.mu,
-            pb.kp_foot, pb.kd_foot, pb.trunk_inertia,
-            pb.rho_fix, pb.default_foot_pos,
-            pb.gait_counter_speed, thresh,
-            cs.ctrl.root_lin_vel_d_rel, substeps=substeps, dt=dt_ll)
-        sim = srb_sim.SimState(
-            pos=out["pos"], quat=out["quat"], vel=out["vel"],
-            omega=out["omega"], q=out["q"], dq=out["dq"],
-            contact=out["contact"], anchor=out["anchor"],
-            last_acc=out["last_acc"])
-        cs = cs.replace(ctrl=cs.ctrl.replace(
-            joint_ang_tgt=out["q_tgt"], joint_vel_tgt=out["dq_tgt"],
-            joint_tau_tgt=out["tau_ff"]))
-        return LoopState(controller=cs, sim=sim), lci_state
 
     def substep(carry, _):
         cs, sim = carry
@@ -558,12 +516,6 @@ def closed_loop_tick_lci_wb(loop: LoopState, lci_state,
     return LoopState(controller=cs, sim=sim), lci_state
 
 
-def default_backend() -> str:
-    """Solver backend for the batched QP kernels: Pallas batch-in-lanes
-    Cholesky on TPU, XLA linalg elsewhere (CPU tests / f64 oracles)."""
-    return "pallas" if jax.default_backend() == "tpu" else "xla"
-
-
 def broadcast_params(params: RobotParams, batch: int) -> RobotParams:
     """Give every RobotParams leaf a leading scenario axis. Leaves already
     batched (runner.randomize_params output) pass through; shared leaves are
@@ -591,73 +543,8 @@ def admm_warm_init(batch: int, horizon: int, dtype=jnp.float32):
     return (jnp.zeros((batch, n), dtype=dtype), z, z)
 
 
-def unpack_fused_feedback(cs: ControllerState, sim, out,
-                          params: RobotParams,
-                          kf_type: int = 0) -> ControllerState:
-    """Rebuild the Feedback pytree + Raibert targets from the fused substep
-    kernel's FB_ROWS block — the batched equivalent of `feedback_update`
-    on flat ground (see ops/substep_pallas.py kernel tail). Under
-    kf_type=1 the root state is the in-kernel KF's ESTIMATE (what
-    fbk.root_pos/root_lin_vel hold on the XLA path). All arrays
-    batch-first."""
-    from legged_mpc_control_tpu.ops.substep_pallas import FB_ROWS
-
-    fb = out["fb"]
-
-    def take(name, *shape):
-        off, n = FB_ROWS[name]
-        x = fb[:, off:off + n]
-        return x.reshape((x.shape[0],) + shape) if shape else x
-
-    B = fb.shape[0]
-    euler = take("euler")
-    R = take("rotmat", 3, 3)
-    yaw = euler[:, 2]
-    cy, sy = jnp.cos(yaw), jnp.sin(yaw)
-    z = jnp.zeros_like(cy)
-    o = jnp.ones_like(cy)
-    Rz = jnp.stack([jnp.stack([cy, -sy, z], -1),
-                    jnp.stack([sy, cy, z], -1),
-                    jnp.stack([z, z, o], -1)], -2)
-    fp_abs = take("foot_pos_abs", 4, 3)
-    fv_abs = take("foot_vel_abs", 4, 3)
-    raib_abs = take("raibert_abs", 4, 3)
-    if kf_type == 1:
-        root_pos = out["kf_x"][:, 0:3]
-        root_vel = out["kf_x"][:, 3:6]
-    else:
-        root_pos, root_vel = out["pos"], out["vel"]
-    fbk = cs.fbk.replace(
-        root_quat=out["quat"], root_pos=root_pos,
-        root_lin_vel=root_vel, root_euler=euler, root_rot_mat=R,
-        root_rot_mat_z=Rz, root_ang_vel=out["omega"],
-        imu_acc=take("imu_acc"), imu_ang_vel=take("imu_gyro"),
-        joint_pos=out["q"], joint_vel=out["dq"],
-        foot_force_sensor=take("foot_force_sensor"),
-        foot_contact_flag=take("contact_sig"),
-        foot_contact_bool=take("contact_bool") > 0.5,
-        foot_pos_rel=take("foot_pos_rel", 4, 3),
-        foot_vel_rel=take("foot_vel_rel", 4, 3),
-        jac_foot=take("jac", 4, 3, 3),
-        foot_pos_abs=fp_abs, foot_vel_abs=fv_abs,
-        foot_pos_world=fp_abs + root_pos[:, None, :],
-        foot_vel_world=take("foot_vel_world", 4, 3),
-        foot_force_tau_est=take("force_tau_est", 4, 3),
-    )
-    ctrl = cs.ctrl.replace(
-        joint_ang_tgt=out["q_tgt"], joint_vel_tgt=out["dq_tgt"],
-        joint_tau_tgt=out["tau_ff"],
-        foot_pos_target_abs=raib_abs,
-        foot_pos_target_world=raib_abs + root_pos[:, None, :],
-    )
-    return cs.replace(fbk=fbk, ctrl=ctrl,
-                      estimation_inited=jnp.ones((B,), dtype=bool))
-
-
 @partial(jax.jit, static_argnames=("horizon", "substeps", "kf_type",
-                                   "iters", "solver", "backend",
-                                   "low_level_type", "fused_substeps",
-                                   "carry_feedback"))
+                                   "iters", "solver", "low_level_type"))
 def closed_loop_tick_batched(loop: LoopState, params: RobotParams,
                              pattern: gait_mod.GaitPattern, *,
                              horizon: int = 10,
@@ -665,31 +552,25 @@ def closed_loop_tick_batched(loop: LoopState, params: RobotParams,
                              kf_type: int = 0,
                              iters: int = 15,
                              solver: str = "riccati",
-                             backend: str = None,
                              low_level_type: int = 0,
                              terrain=None,
-                             warm=None,
-                             fused_substeps: bool = True,
-                             carry_feedback: bool = False):
+                             warm=None):
     """Scenario-batched closed-loop tick. Same semantics as
     `closed_loop_tick` vmapped over a leading scenario axis, EXCEPT the QP
     solve runs once for the whole batch through the explicitly-batched
-    solver (Pallas batch-in-lanes Cholesky on TPU) instead of vmapping the
-    unbatched solve into XLA's ~30x-slower library Cholesky.
+    solver instead of a vmap of the unbatched solve.
 
     Args:
       loop: LoopState with a leading scenario axis on every leaf.
       params: RobotParams with a leading scenario axis on every leaf
         (see `broadcast_params`).
-      solver/warm: "pdip" (cold, reference-accuracy) or "admm" with the warm
+      solver/warm: "riccati"/"pdip" (warm primal) or "admm" with the warm
         tuple carried across ticks (reference: ConvexQPSolver.cpp:185).
 
     Returns (loop', warm').
     """
     dt_mpc = C.MPC_DT
     dt_ll = dt_mpc / substeps
-    if backend is None:
-        backend = default_backend()
 
     v_anf = jax.vmap(_anchored_normal_force)
     v_sensors = jax.vmap(_sim_sensors)
@@ -704,59 +585,11 @@ def closed_loop_tick_batched(loop: LoopState, params: RobotParams,
         sim, tau, p, dt_ll, terrain=terrain))
 
     cs = loop.controller
-    use_fused = (fused_substeps and backend == "pallas" and terrain is None
-                 and kf_type in (0, 1) and low_level_type == 0)
-    if not (carry_feedback and use_fused):
-        # opening feedback from raw sim sensors. With carry_feedback the
-        # previous tick's fused kernel already left a complete Feedback in
-        # the carry (unpack_fused_feedback), so this pass is skipped — the
-        # caller must have seeded the first tick (runner.make_batched_
-        # rollout does one XLA feedback before the scan).
-        grf_normal = jnp.where(loop.sim.contact, v_anf(loop, params), 0.0)
-        cs = v_fb(cs, v_sensors(loop.sim, params, grf_normal), params)
+    grf_normal = jnp.where(loop.sim.contact, v_anf(loop, params), 0.0)
+    cs = v_fb(cs, v_sensors(loop.sim, params, grf_normal), params)
     cs, warm = convex_mpc.mpc_tick_batched(
         cs, params, pattern, dt_mpc, horizon=horizon, iters=iters,
-        solver=solver, backend=backend, warm=warm)
-
-    if use_fused:
-        # product fast path: the whole substep chain in ONE Pallas launch
-        # (ops/substep_pallas.py). The in-substep Feedback products are
-        # recomputed in-kernel, and the kernel's FB_ROWS block carries the
-        # final state's full Feedback for the next tick (see the module
-        # docstring for the exact equivalence argument; cross-checked by
-        # tests/test_substep_fused.py).
-        from legged_mpc_control_tpu.ops import substep_pallas
-
-        thresh = (params.foot_sensor_min + params.foot_sensor_ratio
-                  * (params.foot_sensor_max - params.foot_sensor_min))
-        out = substep_pallas.substep_chain_fused(
-            loop.sim.pos, loop.sim.quat, loop.sim.vel, loop.sim.omega,
-            loop.sim.q, loop.sim.dq, loop.sim.contact, loop.sim.anchor,
-            cs.ctrl.optimized_state, cs.ctrl.optimized_input,
-            cs.ctrl.movement_mode, params.mass, params.mu,
-            params.kp_foot, params.kd_foot, params.trunk_inertia,
-            params.rho_fix, params.default_foot_pos,
-            params.gait_counter_speed, thresh,
-            cs.ctrl.root_lin_vel_d_rel, substeps=substeps, dt=dt_ll,
-            kf_type=kf_type, kf_x=cs.kf.x, kf_P=cs.kf.P)
-        sim = srb_sim.SimState(
-            pos=out["pos"], quat=out["quat"], vel=out["vel"],
-            omega=out["omega"], q=out["q"], dq=out["dq"],
-            contact=out["contact"], anchor=out["anchor"],
-            last_acc=out["last_acc"])
-        if kf_type == 1:
-            # the in-kernel KF advanced 8 substeps; carry its state so
-            # the next tick's opening feedback continues the filter
-            cs = cs.replace(kf=cs.kf.replace(x=out["kf_x"],
-                                             P=out["kf_P"]))
-        if carry_feedback:
-            cs = unpack_fused_feedback(cs, sim, out, params,
-                                       kf_type=kf_type)
-        else:
-            cs = cs.replace(ctrl=cs.ctrl.replace(
-                joint_ang_tgt=out["q_tgt"], joint_vel_tgt=out["dq_tgt"],
-                joint_tau_tgt=out["tau_ff"]))
-        return LoopState(controller=cs, sim=sim), warm
+        solver=solver, warm=warm)
 
     def substep(carry, _):
         cs, sim = carry
@@ -774,25 +607,6 @@ def closed_loop_tick_batched(loop: LoopState, params: RobotParams,
     (cs, sim), _ = jax.lax.scan(substep, (cs, loop.sim), None,
                                 length=substeps, unroll=True)
     return LoopState(controller=cs, sim=sim), warm
-
-
-def seed_batched_feedback(loop: LoopState, params: RobotParams, *,
-                          kf_type: int = 0, terrain=None,
-                          substeps: int = C.SUBSTEPS_PER_MPC_TICK
-                          ) -> LoopState:
-    """One batched feedback pass from raw sim sensors — seeds the carry
-    for `closed_loop_tick_batched(carry_feedback=True)` rollouts (the
-    fused kernel maintains Feedback from then on)."""
-    dt_ll = C.MPC_DT / substeps
-    v_anf = jax.vmap(_anchored_normal_force)
-    v_sensors = jax.vmap(_sim_sensors)
-    v_fb = jax.vmap(
-        lambda cs, raw, p: feedback_update(cs, raw, p, dt_ll,
-                                           kf_type=kf_type,
-                                           terrain=terrain))
-    grf_n = jnp.where(loop.sim.contact, v_anf(loop, params), 0.0)
-    cs = v_fb(loop.controller, v_sensors(loop.sim, params, grf_n), params)
-    return loop.replace(controller=cs)
 
 
 def _anchored_normal_force(loop: LoopState, params: RobotParams):

@@ -16,8 +16,8 @@ from typing import Any
 
 import jax
 import jax.numpy as jnp
-from flax import struct
 
+from legged_mpc_control_tpu import pytree
 from legged_mpc_control_tpu.constants import GRAVITY_EST, NUM_LEG
 from legged_mpc_control_tpu.ops.so3 import skew
 
@@ -33,7 +33,7 @@ SENSOR_NOISE_VIMU_REL_FOOT = 0.1
 SENSOR_NOISE_ZFOOT = 0.001
 
 
-@struct.dataclass
+@pytree.dataclass
 class KfState:
     x: Any          # (18,)
     P: Any          # (18,18)
@@ -148,9 +148,9 @@ def kf_update(kf: KfState, dt, root_rot_mat, imu_acc, imu_ang_vel,
                          height_meas])
 
     # update — SEQUENTIAL scalar processing (exactly equivalent to the
-    # reference's joint 28x28 solve because R is diagonal; avoids the
-    # batched-small library solve that dominates TPU rollouts, see
-    # ops/la3.py for the same pathology at 3x3)
+    # reference's joint 28x28 solve because R is diagonal; avoids a
+    # batched-small library solve per scenario, see ops/la3.py for the
+    # same choice at 3x3)
     x_new, P_new = sequential_update(xbar, Pbar, C, y - yhat, rdiag)
     P_new = 0.5 * (P_new + P_new.T)
 

@@ -1,6 +1,6 @@
 """Extended Kalman filter with leg odometry, foot states, and mocap fusion.
 
-TPU-native equivalent of the reference's CasADi-codegen EKF
+Equivalent of the reference's CasADi-codegen EKF
 (`A1KFCombineLOWithFootTerrain` in the `ShuoYangRobotics/legged-kalman-filter`
 submodule; call surface: reference src/legged_ctrl/src/interfaces/
 BaseInterface.cpp:104-118 `set_noise_params` with 13 noise parameters,
@@ -29,8 +29,8 @@ from typing import Any, NamedTuple
 
 import jax
 import jax.numpy as jnp
-from flax import struct
 
+from legged_mpc_control_tpu import pytree
 from legged_mpc_control_tpu.constants import GRAVITY_EST, NUM_LEG
 from legged_mpc_control_tpu.ops import so3
 
@@ -63,7 +63,7 @@ class EkfNoise(NamedTuple):
     proc_terrain_swing: Any = 0.01
 
 
-@struct.dataclass
+@pytree.dataclass
 class EkfState:
     x: Any            # (21,)
     P: Any            # (21,21)

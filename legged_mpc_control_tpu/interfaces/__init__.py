@@ -3,7 +3,7 @@
 The reference's interface layer (`BaseInterface` -> `GazeboInterface` /
 `HardwareInterface`, reference: src/legged_ctrl/include/interfaces/
 BaseInterface.h:31-43) is where ROS topics / Unitree UDP meet the
-controller. In the TPU-native design the controller itself is a pure jitted
+controller. In this design the controller itself is a pure jitted
 function; these classes are thin host adapters that (a) produce the
 `sensors_raw` dict the control step consumes and (b) transmit its joint
 commands. The simulation backend runs entirely on device (the fast path for

@@ -20,7 +20,7 @@ import time
 def build_parser():
     p = argparse.ArgumentParser(
         prog="legged_mpc_control_tpu",
-        description="TPU-native legged convex-MPC runtime")
+        description="Legged convex-MPC runtime on JAX")
     p.add_argument("--robot", choices=["a1", "go1"], default="a1",
                    help="robot_type (reference: main.cpp:36-44)")
     p.add_argument("--mpc", choices=["convex", "lci", "ci"],
@@ -74,7 +74,7 @@ def build_parser():
                         "interfaces.joystick.send_joy")
     p.add_argument("--f64", action="store_true", help="run in float64")
     p.add_argument("--cpu", action="store_true",
-                   help="force the CPU backend (tests/no-TPU hosts)")
+                   help="run on the CPU (tests, hosts without a GPU)")
     p.add_argument("--yes", action="store_true",
                    help="skip the hardware confirmation prompt "
                         "(reference: main.cpp:57-60)")
@@ -94,11 +94,14 @@ def main(argv=None):
     import jax.numpy as jnp
 
     from legged_mpc_control_tpu import constants as C
+    from legged_mpc_control_tpu import device
     from legged_mpc_control_tpu.config import a1_params, go1_params
     from legged_mpc_control_tpu.control import step as step_mod
     from legged_mpc_control_tpu.mpc import gait as gait_mod
     from legged_mpc_control_tpu.utils import bag as bag_mod
 
+    device.check_platform()
+    device.enable_compile_cache()
     if args.backend == "hardware" and not args.yes:
         # reference: hardware confirmation prompt, main.cpp:57-60
         reply = input("About to drive REAL hardware. Type 'yes' to "
@@ -210,6 +213,7 @@ def main(argv=None):
         "upright": bool(abs(float(loop.controller.fbk.root_euler[0])) < 0.3
                         and abs(float(
                             loop.controller.fbk.root_euler[1])) < 0.3),
+        "device": device.device_info(),
     }
     if args.bag and records:
         import numpy as np

@@ -1,6 +1,6 @@
 """Damped-least-squares inverse kinematics on the full floating-base model.
 
-TPU-native equivalent of the reference's `LeggedIKSolver` (reference:
+Equivalent of the reference's `LeggedIKSolver` (reference:
 src/legged_ctrl/src/utils/LeggedIKSolver.cpp:129-160 — numerical DLS IK on
 the Pinocchio model with Levenberg damping 1e-9, up to 50 iterations, stop
 tolerance 1e-4, warm-started from the previous solution, used by

@@ -3,11 +3,10 @@
 The autodiff Lagrangian model (models/whole_body.py — the idiomatic JAX
 derivation the WBC linearizes against) re-derives M(q)/nle(q,v)/J(q) through
 `jax.jvp`/`jax.hessian` of a per-scenario FK at every call; under a
-scenario batch that is the dominant cost of the articulated sweep backend
-(VERDICT r4 weak #2). This module is the hand-structured equivalent the
-reference gets from Pinocchio's CRBA/RNEA (reference: src/wbc_ctrl/
+scenario batch that is the dominant cost of the articulated sweep backend.
+This module is the hand-structured equivalent the reference gets from Pinocchio's CRBA/RNEA (reference: src/wbc_ctrl/
 wbc.cpp:59-91 pulling M/nle/J from pinocchio::crba/rnea), written
-batch-first for TPU: one leg-vectorized FK pass, then
+batch-first: one leg-vectorized FK pass, then
 
   * M(q)   — composite over the 13 bodies: M = sum_b m_b Jv_b^T Jv_b
              + Jw_b^T I_b^w Jw_b with ANALYTIC body Jacobians (base

@@ -8,7 +8,7 @@ pre-committed contact schedule: contact forces and make/break timing come
 out of complementarity conditions against the terrain, so stepping ONTO a
 box emerges from the geometry instead of from a hand-fed gait table.
 
-This module is the framework's own tpu-native engine for that slot
+This module is the framework's own engine for that slot
 (the Julia engine is an empty submodule in the reference snapshot):
 
   * model — single rigid body + 4 point feet:
@@ -224,8 +224,7 @@ def ci_stage_cost(z, u, ref_z, ref_u, terrain, wts: CiWeights, mu, rho,
 # one compilation serves both the B=1 product tick and the scenario-sweep
 # batch (the reference runs one robot, main.cpp:130-163; the sweep batch is
 # this framework's scaling surface). Three structural rewrites vs a naive
-# vmap of a solo solver — the same playbook that made the convex path fast
-# (ops/riccati_pallas.py, ops/chol_pallas.py):
+# vmap of a solo solver:
 #   * analytic dynamics Jacobians (`_dyn_jac_b`) — the SRB+feet model's
 #     Fz/Fu are a handful of constant and skew blocks; no AD over the
 #     dynamics at all;
@@ -237,10 +236,9 @@ def ci_stage_cost(z, u, ref_z, ref_u, terrain, wts: CiWeights, mu, rho,
 #     EXACT (the cost is exactly sum_i W_i r_i^2); only the Hessian drops
 #     the residual-curvature term — the textbook Gauss-Newton step, PSD by
 #     construction, so the gain solve is a guaranteed-valid Cholesky;
-#   * batched Cholesky gain solves (`_psd_solve_b`) — batch-in-lanes
-#     Pallas kernels on TPU (ops/chol_pallas.py), XLA Cholesky elsewhere —
-#     replacing jnp.linalg.solve's batched LU (pivoting + row gathers that
-#     lower catastrophically on TPU).
+#   * batched Cholesky gain solves (`_psd_solve_b`) — the gain systems are
+#     SPD by construction, so a Cholesky replaces jnp.linalg.solve's
+#     pivoting batched LU.
 # ---------------------------------------------------------------------------
 
 
@@ -559,26 +557,18 @@ def _quad_ggn_b(Zs, Uh, refs_z, refs_u, f_mask, terrain, wall, wts, mu,
     return g, Hm
 
 
-def _psd_solve_b(A, rhs, backend):
-    """Batched SPD solve: A (B,n,n), rhs (B,n,m) -> A^{-1} rhs.
-    backend 'pallas' routes through the batch-in-lanes Cholesky kernels
-    (ops/chol_pallas.py); 'xla' uses the library Cholesky (CPU/f64)."""
-    if backend == "pallas":
-        from legged_mpc_control_tpu.ops import chol_pallas
-        Lt = chol_pallas.cholesky_lanes(jnp.transpose(A, (1, 2, 0)))
-        Xt = chol_pallas.cho_solve_lanes_multi(
-            Lt, jnp.transpose(rhs, (1, 2, 0)))
-        return jnp.transpose(Xt, (2, 0, 1))
+def _psd_solve_b(A, rhs):
+    """Batched SPD solve: A (B,n,n), rhs (B,n,m) -> A^{-1} rhs."""
     L = jnp.linalg.cholesky(A)
     return jax.scipy.linalg.cho_solve((L, True), rhs)
 
 
-@partial(jax.jit, static_argnames=("iters", "dt", "backend", "rho_min",
-                                   "reg", "state_reg", "f_scale"))
+@partial(jax.jit, static_argnames=("iters", "dt", "rho_min", "reg",
+                                   "state_reg", "f_scale"))
 def ci_solve_batched(z0, U0, refs_z, refs_u, terrain, mass, inertia_w,
                      mu, wts: CiWeights = None, f_mask=None, *, iters=16,
                      dt=0.02, rho0=0.5, rho_min=0.05, reg=1e-2,
-                     state_reg=1e-1, f_scale=F0, wall=None, backend=None):
+                     state_reg=1e-1, f_scale=F0, wall=None):
     """Batch-native Gauss-Newton iLQR with an annealed complementarity
     relaxation — ONE solve for a whole scenario batch.
 
@@ -593,10 +583,8 @@ def ci_solve_batched(z0, U0, refs_z, refs_u, terrain, mass, inertia_w,
         warm-started scenario can skip the loose end of the anneal
         (cross-tick warm carry, make_ci_walk_policy).
       iters: fixed sweep count (anneal rho0 -> rho_min geometrically).
-      backend: 'pallas' (TPU batch-in-lanes Cholesky) / 'xla'; default by
-        platform.
 
-    Conditioning (f32 / TPU): force channels are optimized in units of
+    Conditioning (f32): force channels are optimized in units of
     `f_scale` N so every control is O(1), and the gain solve uses
     state-space (Levenberg) regularization Quu + mu_x Fu'Fu — without
     both, the Riccati backward pass explodes through the strong
@@ -605,8 +593,6 @@ def ci_solve_batched(z0, U0, refs_z, refs_u, terrain, mass, inertia_w,
     Returns (U (B,H,NU), Z (B,H+1,NZ), cost (B,)) at the tightest
     relaxation.
     """
-    if backend is None:
-        backend = "pallas" if jax.default_backend() == "tpu" else "xla"
     dtype = z0.dtype
     B, H = U0.shape[0], U0.shape[1]
     if wts is None:
@@ -618,33 +604,6 @@ def ci_solve_batched(z0, U0, refs_z, refs_u, terrain, mass, inertia_w,
     s_u = jnp.concatenate([jnp.full((12,), f_scale, dtype),
                            jnp.ones((12,), dtype)])        # u = s_u * uh
     rho0 = jnp.broadcast_to(jnp.asarray(rho0, dtype), (B,))
-
-    if backend in ("fused", "fused_interpret"):
-        # single-launch Pallas path (flat-zero terrain, wall=None; the
-        # caller gates via ops.ci_pallas.terrain_is_flat_zero + fits):
-        # the whole sweep loop — quadratize, block-sparse backward,
-        # 5-candidate line search — runs in one kernel per lane tile
-        from legged_mpc_control_tpu.ops import ci_pallas
-
-        s_u = jnp.concatenate([jnp.full((12,), f_scale, dtype),
-                               jnp.ones((12,), dtype)])
-        track_h = 2.0 * jnp.concatenate([
-            wts.q_pos, wts.q_eul, wts.q_vel, wts.q_omega,
-            jnp.tile(wts.q_foot, 4),
-            jnp.full((12,), wts.r_f * f_scale * f_scale, dtype),
-            jnp.full((12,), wts.r_w, dtype)]).astype(dtype)
-        wts_vec = jnp.concatenate([
-            jnp.stack([wts.c_fb, wts.c_slip, wts.c_cone,
-                       wts.c_mask]).astype(dtype), track_h])
-        ref_zu = jnp.concatenate([refs_z[:, :-1],
-                                  refs_u[..., 0:12] / f_scale,
-                                  refs_u[..., 12:24]], axis=-1)
-        Uh, Z, cost = ci_pallas.ci_sweeps_fused(
-            z0, U0 / s_u, ref_zu, refs_z[:, -1], f_mask, rho0, wts_vec,
-            mu, mass, jnp.linalg.inv(inertia_w), iters=iters, dt=dt,
-            s_f=f_scale, rho_min=rho_min, reg=reg, state_reg=state_reg,
-            interpret=(backend == "fused_interpret"))
-        return s_u * Uh, Z, cost
 
     eyeU = jnp.eye(NU, dtype=dtype)
     hT = 2.0 * jnp.concatenate([
@@ -678,8 +637,7 @@ def ci_solve_batched(z0, U0, refs_z, refs_u, terrain, mass, inertia_w,
                 "bij,bjk->bik", fuT, fu)
             Qux_r = Qux + state_reg * jnp.einsum("bij,bjk->bik", fuT, fz)
             sol = _psd_solve_b(
-                Quu_r, jnp.concatenate([Qu[:, :, None], Qux_r], axis=2),
-                backend)
+                Quu_r, jnp.concatenate([Qu[:, :, None], Qux_r], axis=2))
             kff = -sol[:, :, 0]
             K = -sol[:, :, 1:]
             # non-finite stage guard (per scenario): zero that stage's
@@ -757,21 +715,12 @@ def ci_solve_batched(z0, U0, refs_z, refs_u, terrain, mass, inertia_w,
     return s_u * Uh, Z, costs[-1]
 
 
-def ci_pallas_available(terrain, wall, horizon, dtype=jnp.float32) -> bool:
-    """True if the single-launch fused TPU kernel (ops/ci_pallas.py)
-    serves this problem: flat-zero terrain, no wall, H <= 12, f32.
-    Concrete (policy-build-time) check — heights must not be traced."""
-    from legged_mpc_control_tpu.ops import ci_pallas
-    return (wall is None and ci_pallas.fits(horizon, dtype)
-            and ci_pallas.terrain_is_flat_zero(terrain))
-
-
-@partial(jax.jit, static_argnames=("iters", "dt", "backend", "rho_min",
-                                   "reg", "state_reg", "f_scale"))
+@partial(jax.jit, static_argnames=("iters", "dt", "rho_min", "reg",
+                                   "state_reg", "f_scale"))
 def ci_solve(z0, U0, refs_z, refs_u, terrain, mass, inertia_w,
              mu, wts: CiWeights = None, f_mask=None, *, iters=16, dt=0.02,
              rho0=0.5, rho_min=0.05, reg=1e-2, state_reg=1e-1,
-             f_scale=F0, wall=None, backend=None):
+             f_scale=F0, wall=None):
     """Single-scenario Gauss-Newton iLQR — the B=1 view of
     `ci_solve_batched` (see there for the algorithm and conditioning
     notes).
@@ -790,7 +739,7 @@ def ci_solve(z0, U0, refs_z, refs_u, terrain, mass, inertia_w,
         z0[None], U0[None], refs_z[None], refs_u[None], terrain, mass,
         inertia_w[None], mu, wts, fm, iters=iters, dt=dt, rho0=rho0,
         rho_min=rho_min, reg=reg, state_reg=state_reg, f_scale=f_scale,
-        wall=wall, backend=backend)
+        wall=wall)
     return U[0], Z[0], cost[0]
 
 
@@ -993,10 +942,6 @@ def make_ci_walk_policy(params, terrain=None, velx=0.1, body_height=0.3,
         terrain = terrain_mod.flat()
     if gait_freq is None:
         gait_freq = float(params.gait_counter_speed)
-    backend = None
-    if (jax.default_backend() == "tpu"
-            and ci_pallas_available(terrain, None, horizon)):
-        backend = "fused"      # single-launch kernel (ops/ci_pallas.py)
 
     def policy(x, t, warm):
         dtype = x.dtype
@@ -1012,7 +957,7 @@ def make_ci_walk_policy(params, terrain=None, velx=0.1, body_height=0.3,
         U, Z, _cost = ci_solve(
             z0, U0, refs_z, refs_u, terrain, params.mass.astype(dtype),
             inertia_w, params.mu.astype(dtype), wts, f_mask, iters=iters,
-            dt=dt_plan, rho0=rho0, backend=backend)
+            dt=dt_plan, rho0=rho0)
         out = _walk_post(U, Z, refs_z, grounded_now, feet_w, terrain,
                          fz_min)
         return out, {"u": U, "valid": jnp.ones((), dtype)}
@@ -1029,8 +974,7 @@ def make_ci_walk_policy_batched(params, terrain=None, velx=0.1,
                                 horizon=10, dt_plan=0.02, iters=24,
                                 fz_min=2.0, wts: CiWeights = None,
                                 offsets=(0.0, 0.5, 0.5, 0.0),
-                                stance_frac=0.5, rho_warm=0.15,
-                                backend=None):
+                                stance_frac=0.5, rho_warm=0.15):
     """Batch-native CI walk policy `(x (B,40), t, warm) -> ((B,78),
     warm')`: the per-scenario prep/post (`_walk_prep`/`_walk_post`) are
     vmapped, but the optimizer itself is ONE `ci_solve_batched` call —
@@ -1045,9 +989,6 @@ def make_ci_walk_policy_batched(params, terrain=None, velx=0.1,
         terrain = terrain_mod.flat()
     if gait_freq is None:
         gait_freq = float(params.gait_counter_speed)
-    if (backend is None and jax.default_backend() == "tpu"
-            and ci_pallas_available(terrain, None, horizon)):
-        backend = "fused"      # single-launch kernel (ops/ci_pallas.py)
 
     def policy(x, t, warm):
         dtype = x.dtype
@@ -1064,7 +1005,7 @@ def make_ci_walk_policy_batched(params, terrain=None, velx=0.1,
         U, Z, _cost = ci_solve_batched(
             z0, U0, refs_z, refs_u, terrain, params.mass.astype(dtype),
             inertia_w, params.mu.astype(dtype), wts, f_mask, iters=iters,
-            dt=dt_plan, rho0=rho0, backend=backend)
+            dt=dt_plan, rho0=rho0)
         out = jax.vmap(lambda u_, z_, rz, gn, fw: _walk_post(
             u_, z_, rz, gn, fw, terrain, fz_min))(
             U, Z, refs_z, grounded_now, feet_w)

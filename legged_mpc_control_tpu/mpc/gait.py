@@ -18,8 +18,8 @@ wraps, LeggedContactFSM.cpp:218-221).
 from typing import Any
 
 import jax.numpy as jnp
-from flax import struct
 
+from legged_mpc_control_tpu import pytree
 from legged_mpc_control_tpu.ops.bezier import swing_foot_pos
 
 MAX_SEG = 12     # lindyhop's per-leg segmentation needs 9 (gait.info)
@@ -27,7 +27,7 @@ SWING = 0
 STANCE = 1
 
 
-@struct.dataclass
+@pytree.dataclass
 class GaitPattern:
     """Per-leg segment tables, shape (4, MAX_SEG)."""
     seg_state: Any       # int32 (4, MAX_SEG)
@@ -246,7 +246,7 @@ def named_pattern(name: str, dtype=jnp.float32) -> GaitPattern:
             f"unknown gait '{name}'; known: {sorted(NAMED_PATTERNS)}")
 
 
-@struct.dataclass
+@pytree.dataclass
 class GaitLegState:
     """Functional state of one leg's contact FSM (vmap over legs).
 

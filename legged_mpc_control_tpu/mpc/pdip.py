@@ -2,7 +2,7 @@
 
 Replaces the reference's OSQP/ADMM solve (reference: ConvexQPSolver.cpp:
 182-194, 314-327) with a Mehrotra predictor-corrector interior-point method
-designed for TPU execution:
+designed for batched accelerator execution:
 
   * fixed iteration count — no data-dependent control flow under `jit`;
     converged batch elements take frozen (zero) steps via masking;
@@ -12,7 +12,7 @@ designed for TPU execution:
     arithmetically on (H, 4, ...) tensors;
   * one Cholesky factorization of (P + G^T D G) per iteration, two
     triangular-solve pairs (predictor + corrector) — all batched over
-    scenarios by `vmap`, mapping to TPU batched GEMM / blocked Cholesky.
+    scenarios, mapping to batched GEMM / batched Cholesky.
 
 Constraint rows per (step k, leg l), forces u = (fx, fy, fz):
     -fx - mu fz <= 0            (reference friction pyramid,
@@ -29,9 +29,9 @@ import jax
 import jax.numpy as jnp
 from jax.scipy.linalg import solve_triangular
 
-# full-f32 contractions: the TPU's default bf16 matmul passes inject ~1e-3
-# relative error into the Newton residuals, which exceeds the QP's
-# R-regularization scale (see qp_builder.py)
+# full-f32 contractions: a reduced-precision f32 matmul (TF32 on the GPU's
+# tensor cores, ~1e-3 relative) injects more error into the Newton
+# residuals than the QP's R-regularization scale (see qp_builder.py)
 from functools import partial as _partial
 _einsum = _partial(jnp.einsum, precision=jax.lax.Precision.HIGHEST)
 
@@ -48,11 +48,9 @@ class PdipResult(NamedTuple):
 # The per-leg constraint matrix decomposes as G(mu) = GA + mu * GB with
 # constant GA/GB — rows are the 4 friction pyramid faces, fz cap, and -fz.
 # (Expressed via dense constants so G, G^T and G^T D G all lower to einsums
-# plus a broadcast multiply-add — elementwise stack/slice formulations of
-# these tiny operators poison XLA's TPU layout assignment for the whole
-# program, dragging the adjacent batched Cholesky into a ~500x slower
-# batch-minor layout. The decomposition also admits per-scenario mu, which
-# the domain-randomized runner needs.)
+# plus a broadcast multiply-add, which XLA fuses into their consumers. The
+# decomposition also admits per-scenario mu, which the domain-randomized
+# runner needs.)
 _GA = ((-1.0, 0.0, 0.0), (1.0, 0.0, 0.0), (0.0, -1.0, 0.0),
        (0.0, 1.0, 0.0), (0.0, 0.0, 1.0), (0.0, 0.0, -1.0))
 _GB = ((0.0, 0.0, -1.0),) * 4 + ((0.0, 0.0, 0.0),) * 2
@@ -236,14 +234,12 @@ def solve_qp_pdip(P, q, mu, fz_max, *, contact=None, iters=18, tol=None):
 
 
 def solve_qp_pdip_batched(P, q, mu, fz_max, contact, *, iters=18, tol=None,
-                          backend="pallas", warm_u=None):
+                          warm_u=None):
     """Explicitly-batched PDIP: P (B,n,n), q (B,n), contact (B,H,4).
 
     Same algorithm as `solve_qp_pdip` but with the scenario batch as a real
-    axis so the Newton factorization can run in the Pallas batch-in-lanes
-    Cholesky kernels (ops/chol_pallas.py) — XLA's library Cholesky /
-    triangular-solve custom calls run this batched-small regime ~30x slower.
-    backend="xla" falls back to jnp.linalg (useful on CPU).
+    axis, so each iteration's B Newton systems factorize in one batched
+    Cholesky call.
 
     warm_u: optional (B, n) previous-tick solution (shift it with
     riccati.warm_shift first) — primal warm start with recentered interior
@@ -252,14 +248,9 @@ def solve_qp_pdip_batched(P, q, mu, fz_max, contact, *, iters=18, tol=None,
 
     Returns PdipResult with batched fields.
     """
-    from legged_mpc_control_tpu.ops import chol_pallas
-
     B, n = q.shape
     H = n // 12
     dtype = P.dtype
-    if backend == "pallas" and not chol_pallas.fits_vmem(
-            n, jnp.dtype(dtype).itemsize):
-        backend = "xla"     # (n,n,LANES) tile exceeds scoped VMEM (H>~16)
     m = H * 4 * N_CON_PER_LEG
     if tol is None:
         tol = 1e-11 if dtype == jnp.float64 else 1e-6
@@ -296,18 +287,12 @@ def solve_qp_pdip_batched(P, q, mu, fz_max, contact, *, iters=18, tol=None,
         K = (P + jax.vmap(lambda bb: _block_diag_add(bb, n, dtype))(blocks)
              + jnp.eye(n, dtype=dtype) * reg)
 
-        if backend == "pallas":
-            Lt = chol_pallas.cholesky_lanes(K.transpose(1, 2, 0))
+        L = jnp.linalg.cholesky(K)
 
-            def newton_solve(rhs):                          # rhs (B,n)
-                return chol_pallas.cho_solve_lanes(Lt, rhs.T).T
-        else:
-            L = jnp.linalg.cholesky(K)
-
-            def newton_solve(rhs):
-                x = solve_triangular(L, rhs[..., None], lower=True)
-                return solve_triangular(jnp.swapaxes(L, -1, -2), x,
-                                        lower=False)[..., 0]
+        def newton_solve(rhs):                              # rhs (B,n)
+            x = solve_triangular(L, rhs[..., None], lower=True)
+            return solve_triangular(jnp.swapaxes(L, -1, -2), x,
+                                    lower=False)[..., 0]
 
         def solve_dir(rc):
             w = (lam * r_prim - rc) / jnp.maximum(s, eps)
@@ -376,7 +361,7 @@ def _block_diag_add(blocks, n, dtype):
 
     Scatter-free: embed[b3k+i, 3m+j] = blocks[k,i,j] * I[k,m] via a
     broadcast multiply with a static identity — XLA fuses this into the
-    consumer add, where a gather/scatter formulation serializes on TPU."""
+    consumer add, where a gather/scatter formulation would serialize."""
     nb = n // 3
     b = blocks.reshape(nb, 3, 3)
     eye = jnp.eye(nb, dtype=dtype)

@@ -1,10 +1,9 @@
 """Riccati-structured batched interior-point MPC solver (long horizons).
 
 The condensed dense formulation (qp_builder.py + pdip.py) factorizes a
-(12H x 12H) Newton matrix per iteration — O((12H)^3) flops and an
-(n, n, 128) VMEM-resident tile that stops fitting on-chip past H ~ 16
-(ops/chol_pallas.py). This module solves the SAME QP without ever
-condensing: the stagewise (sparse) form
+(12H x 12H) Newton matrix per iteration — O((12H)^3) flops, which grows
+past the stagewise cost quickly with the horizon. This module solves the
+SAME QP without ever condensing: the stagewise (sparse) form
 
     min  sum_k 1/2 (x_{k+1} - xref_k)^T Q (x_{k+1} - xref_k)
               + 1/2 u_k^T R u_k
@@ -22,14 +21,13 @@ solved by a time-varying LQR Riccati sweep: O(H * 12^3) work, H small
 The dual residual is evaluated stagewise via a forward rollout + backward
 adjoint, so the dense P / S matrices are never materialized at any horizon.
 
-TPU layout: all stage algebra runs BATCH-IN-LANES — tensors are
-(..., 12, 12, B) with the scenario batch on the minor (lane) axis, and
-every 12x12 matrix product / Cholesky step is hand-unrolled into (12, B) or
-(12, 12, B) elementwise VPU ops that XLA fuses. A `dot_general` / library
-formulation of these batched-tiny contractions pads each 12x12 operand onto
-128x128 MXU tiles (or hits the slow batched library calls) and runs an
-order of magnitude slower. Produces iterates identical (up to roundoff) to
-pdip.solve_qp_pdip_batched on the condensed QP.
+Layout: all stage algebra runs BATCH-LAST — tensors are (..., 12, 12, B)
+with the scenario batch on the minor axis, and every 12x12 matrix product /
+Cholesky step is hand-unrolled into (12, B) or (12, 12, B) elementwise ops
+that XLA fuses, instead of thousands of batched 12x12 library calls.
+Whether that still beats a batched dot_general / cuSOLVER formulation on
+the GPU is not measured yet. Produces iterates identical (up to roundoff)
+to pdip.solve_qp_pdip_batched on the condensed QP.
 """
 
 import jax
@@ -46,11 +44,10 @@ from legged_mpc_control_tpu.mpc.pdip import (
 )
 
 NX = 12
-# stage-scan unroll factor: the per-stage bodies are tiny fused
-# elementwise blocks; unrolling lets XLA overlap/fuse across stages
-# instead of paying a scan-iteration boundary every 12x12 block
-STAGE_UNROLL = 1   # measured: unroll>1 is ~40% SLOWER on v5e (register/VMEM
-                   # pressure beats the scan-boundary saving)
+# stage-scan unroll factor (1 = rolled). Unrolling lets XLA fuse across
+# stages instead of paying a scan-iteration boundary per 12x12 block, at
+# the cost of a larger program.
+STAGE_UNROLL = 1
 
 # --- batch-in-lanes small-matrix algebra -----------------------------------
 # Operands are (..., n, n, B) / (..., n, B); the loops below unroll the tiny
@@ -134,50 +131,6 @@ def _cho_solve_lanes(L, M):
         zs[i] = acc / L[i, i][None, :]
     out = jnp.stack(zs)
     return out[:, 0, :] if vec else out
-
-def dual_residual_batched(u, lam, x0, x_ref, A_seq, Bmat, contact,
-                          q_weights, r_weights, mu, dt):
-    """Stationarity residual of the stagewise QP at (u, lam):
-        r = R u + B^T psi + G(mu)^T lam,
-    with psi the adjoint of the tracking gradient along the rollout of u
-    — one rollout + one adjoint sweep, batch-first layout (a per-call
-    diagnostic, not a hot path).
-
-    Args: u (B, 12H), lam (B, H, 4, 6) inequality duals, the rest as in
-    `solve_qp_riccati`. Returns (B,) max-abs residual."""
-    B, n = u.shape
-    H = n // 12
-    dtype = u.dtype
-    legmask = jnp.repeat(contact, 3, axis=-1)               # (B,H,12)
-    B_seq = Bmat[:, None] * legmask[:, :, None, :]          # (B,H,12,12)
-    qw = jnp.broadcast_to(jnp.asarray(q_weights, dtype), (B, NX))
-    rw = jnp.broadcast_to(jnp.asarray(r_weights, dtype), (B, NX))
-    d_aff = jnp.zeros((NX,), dtype).at[NX - 1].set(-GRAVITY * dt)
-    u_st = u.reshape(B, H, NX)
-
-    def roll(x, k):
-        xn = (jnp.einsum("bij,bj->bi", A_seq[:, k], x)
-              + jnp.einsum("bij,bj->bi", B_seq[:, k], u_st[:, k])
-              + d_aff[None])
-        return xn, xn
-
-    _, X = jax.lax.scan(roll, x0, jnp.arange(H))            # (H,B,12)
-
-    def adj(p, k):
-        # psi_k = qx_k + A_{k+1}^T psi_{k+1} (zero beyond the horizon)
-        qx = qw * (X[k] - x_ref[:, k])
-        pk = qx + jnp.where(k + 1 < H, 1.0, 0.0) * jnp.einsum(
-            "bji,bj->bi", A_seq[:, jnp.minimum(k + 1, H - 1)], p)
-        return pk, pk
-
-    _, psi_r = jax.lax.scan(adj, jnp.zeros((B, NX), dtype),
-                            jnp.arange(H - 1, -1, -1))
-    psi = psi_r[::-1]                                       # (H,B,12)
-    bt_psi = jnp.einsum("bkji,kbj->bki", B_seq, psi)        # (B,H,12)
-    r = (u_st * rw[:, None, :] + bt_psi
-         + _gt_apply(lam, mu).reshape(B, H, NX))
-    return jnp.max(jnp.abs(r).reshape(B, -1), axis=-1)
-
 
 def warm_shift(u_prev, contact):
     """Cross-tick warm start primal: shift the previous tick's optimal
@@ -356,11 +309,11 @@ def solve_qp_riccati_batched(x0, x_ref, A_seq, Bmat, contact, q_weights,
         blocks = _gtdg_blocks(dscale, mu)                  # (B,H,4,3,3)
         # Hu_k = diag(r) + blockdiag(G^T D G) + reg I as (H,12,12,B):
         # place the (H,4,3,3,B) leg blocks by explicit concatenation.
-        # NEVER via a one-hot einsum: on TPU that contraction hits the MXU
-        # with bf16 operand rounding (f32 default precision), quantizing the
+        # NEVER via a one-hot einsum: at default precision that contraction
+        # may round its operands (TF32 on the GPU), quantizing the
         # interior-point D-scale (spans ~1e6) enough to make Huu indefinite
-        # on hard scenarios -> Cholesky NaN -> the non-finite guard froze
-        # those lanes at an unconverged iterate (up to ~70 N GRF error).
+        # on hard scenarios -> Cholesky NaN -> the non-finite guard freezes
+        # those scenarios at an unconverged iterate.
         blk_t = blocks.transpose(1, 2, 3, 4, 0)            # (H,4,3,3,B)
         zero33 = jnp.zeros((H, 3, 3, B), dtype)
         Hu = jnp.concatenate([
@@ -436,39 +389,3 @@ def solve_qp_riccati_batched(x0, x_ref, A_seq, Bmat, contact, q_weights,
     return PdipResult(u=u_out, gap=gap, r_dual=r_dual,
                       iters=jnp.asarray(iters))
 
-
-def solve_qp_riccati(x0, x_ref, A_seq, Bmat, contact, q_weights, r_weights,
-                     mu, fz_max, dt, *, iters=18, backend="xla",
-                     warm_u=None, diagnostics=True, interpret=False):
-    """Backend dispatcher for the stagewise Riccati IPM.
-
-    backend="pallas" routes f32 problems with H <= 12 through the
-    fully-fused single-launch TPU kernel (ops/riccati_pallas.py, ~3x the
-    stage-scan formulation at B=4096: the XLA version pays a kernel-launch
-    boundary per tiny stage); everything else runs the XLA stage-scan
-    version. Identical optima (same Mehrotra iteration; cross-checked in
-    tests/test_riccati_fused.py).
-
-    diagnostics: evaluate the REAL dual residual for the fused path with
-    one post-kernel rollout+adjoint (`dual_residual_batched`) on the
-    kernel's (u, lam) — O(H) elementwise work, negligible next to the
-    iters x factorization inside. False skips it and reports -1.0."""
-    from legged_mpc_control_tpu.ops import riccati_pallas
-
-    H = x_ref.shape[1]
-    if backend == "pallas" and riccati_pallas.fits(H, x_ref.dtype):
-        u, gap, lam = riccati_pallas.solve_qp_riccati_fused(
-            x0, x_ref, A_seq, Bmat, contact, q_weights, r_weights,
-            mu, fz_max, dt, iters=iters, warm_u=warm_u,
-            interpret=interpret)
-        if diagnostics:
-            r_dual = dual_residual_batched(
-                u, lam, x0, x_ref, A_seq, Bmat, contact, q_weights,
-                r_weights, mu, dt)
-        else:
-            r_dual = jnp.full_like(gap, -1.0)
-        return PdipResult(u=u, gap=gap, r_dual=r_dual,
-                          iters=jnp.asarray(iters))
-    return solve_qp_riccati_batched(
-        x0, x_ref, A_seq, Bmat, contact, q_weights, r_weights,
-        mu, fz_max, dt, iters=iters, warm_u=warm_u)

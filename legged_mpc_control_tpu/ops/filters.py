@@ -10,10 +10,11 @@ over the buffer is exact enough; no Neumaier compensation needed.
 from typing import Any
 
 import jax.numpy as jnp
-from flax import struct
+
+from legged_mpc_control_tpu import pytree
 
 
-@struct.dataclass
+@pytree.dataclass
 class MovingWindowState:
     """Ring buffer state. `buf` has shape (window,) + value_shape."""
     buf: Any
@@ -61,7 +62,7 @@ def savgol_coeffs(window: int, order: int = 2, deriv: int = 0,
     return pinv[deriv] * math.factorial(deriv)
 
 
-@struct.dataclass
+@pytree.dataclass
 class SavgolState:
     """Ring buffer for the causal SG filter (same layout as MovingWindow)."""
     buf: Any

@@ -2,10 +2,10 @@
 
 The closed loop solves thousands of tiny 3x3 systems per substep (leg
 Jacobian maps, inertia solves) under `vmap`. `jnp.linalg.solve`/`inv` lower
-these to XLA's batched LU custom calls — the same batched-tiny regime that
-motivated the Pallas Cholesky (ops/chol_pallas.py), orders of magnitude
-slower than arithmetic. A 3x3 adjugate is 27 multiplies of elementwise
-tensors that XLA fuses straight into the surrounding computation.
+these to batched LU library calls, a batched-tiny regime orders of
+magnitude slower than arithmetic. A 3x3 adjugate is 27 multiplies of
+elementwise tensors that XLA fuses straight into the surrounding
+computation.
 
 All functions take (..., 3, 3) and broadcast over leading axes.
 """

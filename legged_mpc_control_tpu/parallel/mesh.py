@@ -1,9 +1,9 @@
 """Device mesh construction and sharding helpers.
 
 The reference's concurrency fabric is three threads + ROS pub/sub + UDP
-(SURVEY.md §2.4). The TPU-native equivalent is scenario parallelism over a
-device mesh: `vmap` within a chip, `NamedSharding`/`shard_map` across chips
-and hosts, with XLA collectives over ICI (intra-slice) and DCN (cross-host).
+(SURVEY.md §2.4). The equivalent here is scenario parallelism over a device
+mesh: `vmap` within a device, `NamedSharding`/`shard_map` across devices and
+hosts, with XLA's collectives between them (NCCL between GPUs).
 """
 
 from typing import Optional, Sequence

@@ -23,8 +23,8 @@ from typing import Any
 
 import jax
 import jax.numpy as jnp
-from flax import struct
 
+from legged_mpc_control_tpu import pytree
 from legged_mpc_control_tpu.config import RobotParams
 from legged_mpc_control_tpu.constants import GRAVITY_EST
 from legged_mpc_control_tpu.models import kinematics as kin
@@ -35,7 +35,7 @@ LEG_DAMPING = 0.05        # viscous joint damping, N m s/rad
 CONTACT_RELEASE_FZ = 1.0  # N: release anchor when commanded support drops
 
 
-@struct.dataclass
+@pytree.dataclass
 class SimState:
     pos: Any            # (3,) trunk CoM, world
     quat: Any           # (4,) [w,x,y,z]

@@ -16,17 +16,18 @@ randomization) and lives inside `jit`/`scan`.
 from typing import Any
 
 import jax.numpy as jnp
-from flax import struct
+
+from legged_mpc_control_tpu import pytree
 
 
-@struct.dataclass
+@pytree.dataclass
 class Terrain:
     heights: Any      # (Nx, Ny) grid of ground heights
     origin: Any       # (2,) world xy of grid node [0, 0]
     cell: Any         # scalar grid spacing (m)
 
 
-@struct.dataclass
+@pytree.dataclass
 class Wall:
     """Vertical half-space obstacle: free space is {p : (p - point)·normal
     >= 0}, i.e. `normal` is the unit contact normal pointing OUT of the

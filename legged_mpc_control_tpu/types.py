@@ -13,15 +13,15 @@ Leg-indexed quantities use shape (4, ...) in FL, FR, RL, RR order.
 from typing import Any
 
 import jax.numpy as jnp
-from flax import struct
 
+from legged_mpc_control_tpu import pytree
 from legged_mpc_control_tpu.estimation.basic_kf import KfState
 from legged_mpc_control_tpu.estimation.ekf import EkfState
 from legged_mpc_control_tpu.mpc.gait import GaitLegState
 from legged_mpc_control_tpu.ops.filters import MovingWindowState
 
 
-@struct.dataclass
+@pytree.dataclass
 class Feedback:
     """Sensor + estimator outputs. reference: LeggedState.h:13-65."""
     root_quat: Any            # (4,) [w,x,y,z]
@@ -50,7 +50,7 @@ class Feedback:
     estimated_contacts: Any   # (4,)
 
 
-@struct.dataclass
+@pytree.dataclass
 class Ctrl:
     """Controller working set. reference: LeggedState.h:67-112."""
     movement_mode: Any        # int32: 0 stand, 1 walk
@@ -69,7 +69,7 @@ class Ctrl:
     joint_tau_tgt: Any        # (12,)
 
 
-@struct.dataclass
+@pytree.dataclass
 class JoyCmd:
     """Processed operator command. reference: LeggedState.h:114-138."""
     velx: Any
@@ -82,7 +82,7 @@ class JoyCmd:
     exit_flag: Any            # bool: operator requested shutdown
 
 
-@struct.dataclass
+@pytree.dataclass
 class ControllerState:
     """Full functional controller state threaded through the control step."""
     fbk: Feedback

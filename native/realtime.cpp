@@ -1,7 +1,7 @@
 // Real-time host runtime: rate-scheduled control loops, a seqlock state
 // exchange, and a UDP robot transport.
 //
-// TPU-native replacement for the reference's process runtime — three
+// Replacement for the reference's process runtime — three
 // free-running threads over a racy shared struct plus raw UDP to the robot
 // (reference: src/legged_ctrl/src/main.cpp:110-256,
 // src/legged_ctrl/src/interfaces/HardwareInterface.cpp:7, :86-120).

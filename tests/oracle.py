@@ -8,6 +8,7 @@ under test.
 """
 
 import numpy as np
+from scipy.linalg import cho_factor, cho_solve
 
 
 def solve_qp_oracle(H, g, A, lb, ub, rho=0.1, sigma=1e-6, alpha=1.6,
@@ -22,11 +23,10 @@ def solve_qp_oracle(H, g, A, lb, ub, rho=0.1, sigma=1e-6, alpha=1.6,
     rho_vec = np.where(eq_row, rho * 1e3, rho)
 
     K = H + sigma * np.eye(n) + A.T @ (rho_vec[:, None] * A)
-    K_chol = np.linalg.cholesky(K)
+    K_chol = cho_factor(K, lower=True)
 
     def ksolve(b):
-        t = np.linalg.solve(K_chol, b)
-        return np.linalg.solve(K_chol.T, t)
+        return cho_solve(K_chol, b)
 
     for _ in range(iters):
         rhs = sigma * x - g + A.T @ (rho_vec * z - y)

@@ -44,10 +44,10 @@ def test_admm_matches_pdip_at_osqp_accuracy():
     params, qp, contact = _batch_qps()
     ref = pdip.solve_qp_pdip_batched(
         qp.P, qp.q, params.mu, params.fz_max, contact,
-        iters=25, backend="xla").u
+        iters=25).u
     got = admm.solve_qp_admm_batched(
         qp.P, qp.q, params.mu, params.fz_max, contact,
-        iters=500, backend="xla").u
+        iters=500).u
     # OSQP-grade agreement on the GRFs (forces are O(10-100) N; OSQP at
     # abs 1e-3 / rel 1e-4 leaves comparable solution error)
     err = np.max(np.abs(np.asarray(got - ref)))
@@ -58,7 +58,7 @@ def test_admm_respects_constraints():
     params, qp, contact = _batch_qps()
     res = admm.solve_qp_admm_batched(
         qp.P, qp.q, params.mu, params.fz_max, contact,
-        iters=500, backend="xla")
+        iters=500)
     u = np.asarray(res.u).reshape(res.u.shape[0], -1, 4, 3)
     fz = u[..., 2]
     mu = float(params.mu)
@@ -74,8 +74,7 @@ def test_admm_respects_constraints():
 
 def test_admm_warm_start_accelerates():
     params, qp, contact = _batch_qps(B=4)
-    kw = dict(mu=params.mu, fz_max=params.fz_max, contact=contact,
-              backend="xla")
+    kw = dict(mu=params.mu, fz_max=params.fz_max, contact=contact)
     full = admm.solve_qp_admm_batched(qp.P, qp.q, iters=800, **kw)
     cold = admm.solve_qp_admm_batched(qp.P, qp.q, iters=30, **kw)
     warm = admm.solve_qp_admm_batched(qp.P, qp.q, iters=30,
@@ -89,7 +88,7 @@ def test_admm_warm_start_accelerates():
 def test_admm_jit_compiles_and_is_finite_f32():
     params, qp, contact = _batch_qps(B=4, dtype=jnp.float32)
     fn = jax.jit(lambda P, q, c: admm.solve_qp_admm_batched(
-        P, q, params.mu, params.fz_max, c, iters=60, backend="xla").u)
+        P, q, params.mu, params.fz_max, c, iters=60).u)
     u = fn(qp.P, qp.q, contact)
     assert bool(jnp.all(jnp.isfinite(u)))
     # stance legs carry roughly the robot weight

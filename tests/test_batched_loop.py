@@ -1,4 +1,4 @@
-"""Batched closed-loop tick (the TPU product path) vs per-scenario reference.
+"""Batched closed-loop tick (the product path) vs per-scenario reference.
 
 Round-2 requirement: the closed loop must route its scenario batch through
 the explicitly-batched solvers (`solve_qp_pdip_batched` /
@@ -29,8 +29,7 @@ def test_batched_tick_matches_vmapped_reference():
     params_b = step_mod.broadcast_params(params, batch)
 
     got, warm = step_mod.closed_loop_tick_batched(
-        loop, params_b, pattern, horizon=5, iters=12, solver="pdip",
-        backend="xla")
+        loop, params_b, pattern, horizon=5, iters=12, solver="pdip")
     # the tick returns its primal for the next tick's cross-tick warm start
     # (reference: ConvexQPSolver.cpp:185)
     assert warm.shape == (batch, 12 * 5)
@@ -62,8 +61,7 @@ def test_riccati_batched_tick_matches_pdip():
     got_r, _ = step_mod.closed_loop_tick_batched(
         loop, params_b, pattern, horizon=5, iters=15, solver="riccati")
     got_p, _ = step_mod.closed_loop_tick_batched(
-        loop, params_b, pattern, horizon=5, iters=15, solver="pdip",
-        backend="xla")
+        loop, params_b, pattern, horizon=5, iters=15, solver="pdip")
     np.testing.assert_allclose(np.asarray(got_r.sim.pos),
                                np.asarray(got_p.sim.pos), atol=1e-7)
     np.testing.assert_allclose(
@@ -83,10 +81,10 @@ def test_admm_warm_rollout_tracks_pdip_rollout():
     loop0 = runner.init_loop_batch(params, batch, key, dtype=DTYPE)
     roll_pdip = jax.jit(runner.make_batched_rollout(
         pattern, horizon=5, n_ticks=n_ticks, pdip_iters=15, solver="pdip",
-        backend="xla", walk_velx=0.2))
+        walk_velx=0.2))
     roll_admm = jax.jit(runner.make_batched_rollout(
         pattern, horizon=5, n_ticks=n_ticks, pdip_iters=60, solver="admm",
-        backend="xla", walk_velx=0.2))
+        walk_velx=0.2))
 
     fin_p, _ = roll_pdip(loop0, params)
     fin_a, _ = roll_admm(loop0, params)

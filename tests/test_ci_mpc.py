@@ -19,7 +19,7 @@ from legged_mpc_control_tpu.mpc import ci_mpc, lci_mpc
 from legged_mpc_control_tpu.sim import srb_sim
 from legged_mpc_control_tpu.sim import terrain as terrain_mod
 
-DTYPE = jnp.float32   # the engine's product dtype (f32 TPU path)
+DTYPE = jnp.float32   # the engine's product dtype
 PARAMS = a1_params(DTYPE)
 MG = float(PARAMS.mass) * 9.81
 

@@ -1,4 +1,5 @@
-"""Batched PDIP path (the TPU bench path) vs the per-scenario reference."""
+"""Batched PDIP path (the condensed bench path) vs the per-scenario
+reference."""
 
 import jax
 import jax.numpy as jnp
@@ -13,7 +14,7 @@ def test_batched_xla_matches_vmap_path():
     H, B = 10, 6
     params, x0, contact = ge._make_problem_batch(B, H, dtype)
     solve_batched = jax.jit(ge._solve_batch_fn(params, H, iters=20,
-                                               backend="xla"))
+                                               solver="pdip"))
     got = solve_batched(x0, contact)
 
     # per-scenario reference through the original API
@@ -42,29 +43,3 @@ def test_batched_xla_matches_vmap_path():
     want = jax.vmap(one)(x0, contact)
     np.testing.assert_allclose(np.asarray(got), np.asarray(want), atol=1e-9)
 
-
-def test_batched_pallas_interpret_matches_xla():
-    """Pallas kernels (interpret mode on CPU) vs the XLA backend."""
-    from legged_mpc_control_tpu.ops import chol_pallas
-
-    dtype = jnp.float32
-    H, B = 10, 4
-    params, x0, contact = ge._make_problem_batch(B, H, dtype)
-
-    # monkeypatch the kernels to interpret mode for the CPU test
-    orig_chol = chol_pallas.cholesky_lanes
-    orig_solve = chol_pallas.cho_solve_lanes
-    chol_pallas.cholesky_lanes = lambda K: orig_chol(K, interpret=True)
-    chol_pallas.cho_solve_lanes = (
-        lambda L, r: orig_solve(L, r, interpret=True))
-    try:
-        got = ge._solve_batch_fn(params, H, iters=12,
-                                 backend="pallas")(x0, contact)
-    finally:
-        chol_pallas.cholesky_lanes = orig_chol
-        chol_pallas.cho_solve_lanes = orig_solve
-
-    want = jax.jit(ge._solve_batch_fn(params, H, iters=12,
-                                      backend="xla"))(x0, contact)
-    np.testing.assert_allclose(np.asarray(got), np.asarray(want),
-                               rtol=2e-3, atol=2e-3)

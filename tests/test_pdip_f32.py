@@ -1,6 +1,6 @@
 """float32 PDIP regression tests.
 
-The production/bench path runs the QP in f32 on TPU. Two failure modes are
+The production/bench path runs the QP in f32 on the accelerator. Two failure modes are
 pinned here (both were real bugs found against the f64 oracle):
   1. bf16 MXU default-precision contractions making the condensed Hessian
      indefinite (qp_builder now forces HIGHEST precision + symmetrizes);
@@ -18,7 +18,7 @@ import __graft_entry__ as ge
 def _solutions(dtype, iters, horizon=10, batch=16):
     params, x0, contact = ge._make_problem_batch(batch, horizon, dtype)
     fn = jax.jit(ge._solve_batch_fn(params, horizon, iters=iters,
-                                    backend="xla"))
+                                    solver="pdip"))
     return np.asarray(fn(x0, contact))
 
 

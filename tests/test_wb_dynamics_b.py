@@ -49,7 +49,7 @@ def test_analytic_matches_autodiff(robot):
 
 def test_analytic_f32_consistency():
     """The f32 product path stays within fp tolerance of the f64 analytic
-    sweep (the articulated sim runs f32 on TPU)."""
+    sweep (the articulated sim runs f32 on the accelerator)."""
     model = wb.a1_wb_model()
     q64, v64 = _rand_states(model, B=3, seed=3)
     M64, nle64, J64, _ = wbb.dyn_terms_b(q64, v64, model)

@@ -152,7 +152,7 @@ def test_step_down_ledge():
 def test_flying_trot_flight_phase():
     """flying_trot at 0.3 m/s for 4 s: stays up AND genuinely flies —
     some control ticks have ZERO feet in contact. Impossible on the
-    anchored-contact SRB sim (VERDICT r2); physical here."""
+    anchored-contact SRB sim; physical here."""
     params = _params()
     loop, min_contacts, trace = _walk(
         _start(params), params, gait.named_pattern("flying_trot", DT),
@@ -189,7 +189,7 @@ def test_bound_holds():
 def test_wbc_torque_level_stand():
     """Hierarchical WBC (low_level_type=1) stabilizes standing at TORQUE
     level on the articulated dynamics — proving the WBC's torques against
-    real whole-body physics, which the SRB sim never could (VERDICT r2)."""
+    real whole-body physics, which the SRB sim never could."""
     params = _params()
     loop = _start(params)
     for _ in range(150):

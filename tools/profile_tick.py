@@ -1,11 +1,15 @@
-"""One-off profiling of the batched closed-loop tick on the real chip:
-times the full tick, the MPC solve alone, and the substep chain alone,
-plus a per-stage breakdown of the substep (lowlevel / sim / feedback)."""
+"""Profiling of the batched closed-loop tick on the device JAX runs on:
+times the full tick, the MPC solve alone, and a per-stage breakdown of
+the substep (lowlevel / sim / feedback).
+
+    python tools/profile_tick.py
+"""
 import time
 
 import jax
 import jax.numpy as jnp
 
+from legged_mpc_control_tpu import device
 from legged_mpc_control_tpu.config import go1_params
 from legged_mpc_control_tpu.mpc import gait, convex_mpc
 from legged_mpc_control_tpu.parallel import runner
@@ -20,6 +24,7 @@ params1 = go1_params(dtype)
 pattern = gait.trot_pattern(dtype)
 loop = runner.init_loop_batch(params1, B, jax.random.PRNGKey(0), dtype=dtype)
 params = step_mod.broadcast_params(params1, B)
+print(device.device_info())
 
 
 def timeit(fn, args, n=20):
